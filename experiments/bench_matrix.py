@@ -1,36 +1,43 @@
 """BASELINE.json config-matrix benchmark vs the reference binary.
 
-Silesia is not fetchable from this container (zero egress), so each config
-runs on a DOCUMENTED PROXY corpus assembled from real container files in
-the same class (see build_corpora).  For every config the same exact bytes
-go through (a) our codec on the current JAX backend and (b) the reference
-C binary (built from /root/reference sources copied to /tmp), recording
-ratio + MB/s for both and a bit-exact cross-decode check: the C binary
-must decode our stream byte-for-byte.
+Silesia is not fetched (the program needs no network), so each config
+runs on a DOCUMENTED PROXY corpus assembled from files installed with the
+Python environment, in the same class (see build_corpora).  For every
+config the same exact bytes go through (a) our codec on the current JAX
+backend and (b) the reference C binary (built from $X3_REFERENCE_SRC into
+the checkout's build/x3ref), recording ratio + MB/s for both and a
+bit-exact cross-decode check: the C binary must decode our stream
+byte-for-byte.
 
-Usage: python experiments/bench_matrix.py [--cpu] [config ...]
+Usage: X3_REFERENCE_SRC=<x3-compressor sources> \
+       python experiments/bench_matrix.py [--cpu] [config ...]
 Configs: text xml tabular binary sweep  (default: all but sweep)
 """
 
 import json
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
 import time
 
-import numpy as np
-
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from x3tpu.utils import device  # noqa: E402
+
+device.enable_compile_cache()
 
 T0 = time.time()
-SP = pathlib.Path("/opt/venv/lib/python3.12/site-packages")
+# the installed packages' directory (JAX's parent): the proxy corpora's source
+SP = pathlib.Path(jax.__file__).resolve().parents[1]
+REF = ROOT / "build" / "x3ref"
 
 
 def log(msg):
@@ -77,34 +84,36 @@ def build_corpora():
     corp["binary4"] = _concat_files(sos[:16], 32 << 20)[: 4 << 20]
     corp["text128"] = corp["text"][: 128 << 10]
     # BASELINE config #4 proxy (full-corpus sweep): every class
-    # concatenated, block-data-parallel across lanes on one chip (the
-    # container has one real chip; 8-chip scaling is validated separately
-    # by the dryrun_multichip CPU mesh + the 2-process multihost test)
+    # concatenated, block-data-parallel across lanes on one device
+    # (multi-device runs: chip_smoke.py --four-cards and the
+    # dryrun_multichip CPU mesh)
     corp["sweep"] = (corp["text"] + corp["xml"] + corp.get("tabular", b"")
                      + corp["binary"])
     return corp
 
 
 def build_reference():
-    ref = pathlib.Path("/tmp/x3ref")
-    binp = ref / "x3"
+    binp = REF / "x3"
     if binp.exists():
         return binp
-    ref.mkdir(exist_ok=True)
-    for f in pathlib.Path("/root/reference").glob("*"):
+    src = os.environ.get("X3_REFERENCE_SRC")
+    if not src:
+        raise SystemExit("set X3_REFERENCE_SRC to the x3-compressor sources")
+    REF.mkdir(parents=True, exist_ok=True)
+    for f in pathlib.Path(src).glob("*"):
         if f.is_file():
-            shutil.copy(f, ref / f.name)
-    subprocess.run(["make", "BUILD=release", "-C", str(ref)], check=True,
+            shutil.copy(f, REF / f.name)
+    subprocess.run(["make", "BUILD=release", "-C", str(REF)], check=True,
                    capture_output=True)
     return binp
 
 
 def run_reference(binp, data, args):
     """(ratio, encode_MB/s, decode_MB/s, stream) from the C binary."""
-    src = pathlib.Path("/tmp/x3ref/in.bin")
+    src = REF / "in.bin"
     src.write_bytes(data)
-    for p in ("/tmp/x3ref/in.bin.x3", "/tmp/x3ref/out.bin"):
-        pathlib.Path(p).unlink(missing_ok=True)
+    for p in (REF / "in.bin.x3", REF / "out.bin"):
+        p.unlink(missing_ok=True)
     t0 = time.time()
     r = subprocess.run(
         [str(binp), "-z", "-f"] + args + [str(src)],
@@ -112,10 +121,10 @@ def run_reference(binp, data, args):
     )
     assert r.returncode == 0, r.stderr[-500:]
     te = time.time() - t0
-    stream = pathlib.Path("/tmp/x3ref/in.bin.x3").read_bytes()
+    stream = (REF / "in.bin.x3").read_bytes()
     t0 = time.time()
     r = subprocess.run(
-        [str(binp), "-d", "-f", "/tmp/x3ref/in.bin.x3"],
+        [str(binp), "-d", "-f", str(REF / "in.bin.x3")],
         capture_output=True, text=True,
     )
     assert r.returncode == 0, r.stderr[-500:]
@@ -127,48 +136,41 @@ def run_reference(binp, data, args):
 
 
 def run_ours(data, params, block_bytes, caps=None):
-    """(ratio, encode MB/s, decode MB/s, payloads) block-DP on the current
-    backend via the runtime (VM kernel on TPU, XLA on CPU)."""
-    from x3tpu import codec
+    """(ratio, encode MB/s, decode MB/s, payloads, compile+warm-up s)
+    block-DP on the current backend via the runtime's XLA event loop."""
     from x3tpu.parallel import runtime
 
     if caps is None:
-        caps = runtime.caps_for_block(block_bytes, window=params.window)
+        caps = runtime.caps_for_block(block_bytes)
     blocks = [data[i : i + block_bytes]
               for i in range(0, len(data), block_bytes)]
     # warmup/compile on first block set
-    eng: list = []
     t0 = time.time()
-    res = runtime.encode_wave(blocks, params, caps, engine_out=eng)
+    res = runtime.encode_wave(blocks, params, caps)
     tc = time.time() - t0
     t0 = time.time()
-    res = runtime.encode_wave(blocks, params, caps, engine_out=eng)
+    res = runtime.encode_wave(blocks, params, caps)
     te = time.time() - t0
+    runtime.decode_wave(res.payloads, [len(b) for b in blocks], params, caps)
     t0 = time.time()
     dec = runtime.decode_wave(res.payloads, [len(b) for b in blocks],
-                              params, caps, engine_out=eng)
-    td0 = time.time() - t0
-    t0 = time.time()
-    dec = runtime.decode_wave(res.payloads, [len(b) for b in blocks],
-                              params, caps, engine_out=eng)
+                              params, caps)
     td = time.time() - t0
     assert b"".join(dec.payloads) == data, "our round-trip failed"
     comp = sum(len(p) for p in res.payloads)
     mb = len(data) / 1e6
-    # engines per phase: [enc warm, enc timed, dec warm, dec timed]
-    return (len(data) / comp, mb / te, mb / td, res.payloads, tc,
-            ",".join(eng))
+    return len(data) / comp, mb / te, mb / td, res.payloads, tc
 
 
 def cross_decode(binp, payloads, blocks):
     """C binary decodes our per-block streams bit-exactly."""
     for i, (p, b) in enumerate(zip(payloads, blocks)):
-        f = pathlib.Path("/tmp/x3ref/x.x3")
+        f = REF / "x.x3"
         f.write_bytes(p)
         r = subprocess.run([str(binp), "-d", "-f", str(f)],
                            capture_output=True)
         assert r.returncode == 0, f"block {i}: C decode rc {r.returncode}"
-        got = pathlib.Path("/tmp/x3ref/x").read_bytes()
+        got = (REF / "x").read_bytes()
         assert got == b, f"block {i}: C cross-decode mismatch"
     return True
 
@@ -181,20 +183,13 @@ def main():
     binp = build_reference()
     log(f"corpora: { {k: len(v) for k, v in corp.items()} }")
 
-    import dataclasses
-
-    from x3tpu.config import CodecCaps
-
     # BASELINE config #3 (mozilla/samba-class, independent 4 MB blocks).
     # Genuine diverse binary at 4 MB grows state to dict 21770 entries,
-    # 391K pairs, ctx1 rows up to 7449 items (instrumented reference,
-    # /tmp/ref4mb_hub.log 2026-08-18: hub rows only 1595/477; 61 non-hub
-    # rows >640).  The VM kernel hosts this via the huge-row tier
-    # (nr2_1=64 spans) and a 24576-entry dictionary (the largest that
-    # fits the VMEM budget; 128-multiple, non-pow2 is fine).
+    # 391K pairs, ctx1 rows up to 7449 items (instrumented reference
+    # encode: hub rows only 1595/477; 61 non-hub rows >640);
+    # caps_for_block sizes the MB-block regime for it
     from x3tpu.parallel import runtime as rt
 
-    # caps_for_block sizes the MB-block regime for the VM directly now
     caps_4mb = rt.caps_for_block(4 << 20)
     assert (caps_4mb.dict_cap, caps_4mb.ctx_items_cap) == (24576, 8192)
 
@@ -216,7 +211,7 @@ def main():
          None),
         ("binary-4mb", "binary4", ["-t", "15", "-w", "8"], X3Params(),
          4 << 20, caps_4mb),  # reference side: measured offline (see below)
-        # full-corpus sweep (config #4 single-chip proxy) — opt-in: the
+        # full-corpus sweep (config #4 single-device proxy) — opt-in: the
         # reference side alone takes ~3-10 min on these bytes
         ("sweep", "sweep", ["-t", "15", "-w", "8"], X3Params(), 128 << 10,
          None),
@@ -233,16 +228,15 @@ def main():
             continue
         log(f"config {name}: {len(data)} bytes, block {bb >> 10} KiB ...")
         try:
-            (ratio, enc, dec, payloads, tc,
-             engines) = run_ours(data, params, bb, ccaps)
+            ratio, enc, dec, payloads, tc = run_ours(data, params, bb, ccaps)
         except Exception as e:
             log(f"{name}: OURS FAILED {type(e).__name__}: {str(e)[:200]}")
             continue
         log(f"  ours: ratio {ratio:.4f} enc {enc:.4f} MB/s dec {dec:.4f} "
-            f"MB/s (compile {tc:.0f}s, engines {engines})")
+            f"MB/s (compile + warm-up {tc:.0f}s)")
         if name == "binary-4mb":
-            # measured offline on these exact bytes (instrumented build,
-            # /tmp/ref4mb.log 2026-08-17): encode 1450.9 s for 4 MiB,
+            # measured offline on these exact bytes (instrumented build of
+            # the reference, one x86 core): encode 1450.9 s for 4 MiB,
             # ratio 6.2626; decode not run (same O(state) scans apply)
             rratio, renc, rdec = 6.2626, 4194304 / 1450.9 / 1e6, float("nan")
         else:
@@ -259,7 +253,7 @@ def main():
         rows.append(dict(
             config=name, bytes=len(data), block_kib=bb >> 10,
             ours_ratio=round(ratio, 4), ours_enc_mbs=round(enc, 4),
-            ours_dec_mbs=round(dec, 4), engines=engines,
+            ours_dec_mbs=round(dec, 4), **device.describe(),
             ref_ratio=round(rratio, 4),
             ref_enc_mbs=round(renc, 4), ref_dec_mbs=round(rdec, 4),
             cross_decode_ok=xok,

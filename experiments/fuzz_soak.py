@@ -6,14 +6,16 @@ Tiers, by cost:
                     inputs across alphabets/shapes, both decode directions.
   B (every 25th)    XLA lane codec (CPU backend) encode+decode vs spec on a
                     4-block batch.
-  C (every 200th)   codec-VM kernel in interpreter mode, fixed small config
-                    (one trace, reused), encode vs spec + VM decode round
-                    trip.
+  C (every 200th)   the product wave path (runtime.encode_wave /
+                    decode_wave) on random 64-symbol data that promotes
+                    context rows, fixed config (one compile, reused).
 
 Usage: python experiments/fuzz_soak.py [seconds] [seed]
-Exits non-zero on the first mismatch, leaving a repro file in /tmp.
+Exits non-zero on the first mismatch, leaving a repro file in the
+checkout's fuzz_repro/ directory.
 """
 
+import pathlib
 import sys
 import time
 
@@ -22,12 +24,15 @@ import numpy as np
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 
-sys.path.insert(0, "/root/repo")
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 from x3tpu import codec, host, spec
 from x3tpu.config import CodecCaps, X3Params
+from x3tpu.utils import device
+
+device.enable_compile_cache()
 
 BUDGET = float(sys.argv[1]) if len(sys.argv) > 1 else 3600.0
 SEED = int(sys.argv[2]) if len(sys.argv) > 2 else 20260818
@@ -74,7 +79,9 @@ def rand_input(rng, nmax=1500) -> bytes:
 
 
 def save_repro(tag, data, params):
-    path = f"/tmp/fuzz_fail_{tag}_{int(time.time())}.npz"
+    out = ROOT / "fuzz_repro"
+    out.mkdir(exist_ok=True)
+    path = out / f"fuzz_fail_{tag}_{int(time.time())}.npz"
     np.savez(path, data=np.frombuffer(data, np.uint8),
              params=np.array([params.max_match_count, params.window,
                               params.magic_factor1, params.magic_factor2,
@@ -131,107 +138,35 @@ def tier_b(rng):
     return sum(map(len, blocks))
 
 
-# one fixed VM config so the interpret-mode trace is built once
-VM_PARAMS = X3Params(max_match_count=4, window=256)
-VM_CAPS = CodecCaps(dict_cap=1024, pair_cap=2048, ctx_items_cap=128,
-                    ctx0_items_cap=128, ctx_small_cap=16, block_bytes=2048)
+# tier C: one fixed config and data length, so the programs compile once;
+# random 64-symbol data promotes context rows past the 16-item small pool
+PROMO_PARAMS = X3Params(max_match_count=15, window=32)
+PROMO_CAPS = CodecCaps(dict_cap=512, pair_cap=4096, ctx_items_cap=1024,
+                       ctx0_items_cap=1024, ctx_small_cap=16,
+                       block_bytes=8192)
 
 
 def tier_c(rng):
-    from x3tpu.vm import decode_blocks_vm_chunked, encode_blocks_vm_chunked
+    from x3tpu.parallel import runtime
 
-    blocks = [rand_input(rng, 1800)[:2048] for _ in range(3)] + [b""]
-    text, tlen = codec.pack_blocks(blocks, VM_PARAMS, VM_CAPS)
-    words, byte_lens, _, _, of = encode_blocks_vm_chunked(
-        text, tlen, VM_PARAMS, VM_CAPS, chunk_steps=4096, interpret=True
-    )
-    for f in of._fields:
-        assert not np.asarray(getattr(of, f)).any(), f"VM overflow {f}"
-    words = np.asarray(words)
-    byte_lens = np.asarray(byte_lens)
+    blocks = [rng.integers(1, 65, 6000, np.uint8).tobytes(), b""]
+    enc = runtime.encode_wave(blocks, PROMO_PARAMS, PROMO_CAPS)
     for i, b in enumerate(blocks):
-        got = words[i].astype("<u4").tobytes()[: byte_lens[i]]
-        if got != spec.encode(b, VM_PARAMS):
-            save_repro(f"vm_enc{i}", b, VM_PARAMS)
-            raise AssertionError(f"VM vs spec mismatch block {i}")
-    out, _out_lens, _cnt, _sz, dof = decode_blocks_vm_chunked(
-        jax_words(words), jax_lens(byte_lens), VM_PARAMS, VM_CAPS,
-        chunk_steps=4096, interpret=True,
-    )
-    for f in dof._fields:
-        assert not np.asarray(getattr(dof, f)).any(), f"VM dec overflow {f}"
-    out = np.asarray(out)
-    for i, b in enumerate(blocks):
-        if bytes(out[i, : len(b)].astype(np.uint8)) != b:
-            save_repro(f"vm_dec{i}", b, VM_PARAMS)
-            raise AssertionError(f"VM decode mismatch block {i}")
+        if enc.payloads[i] != spec.encode(b, PROMO_PARAMS):
+            save_repro(f"promo_enc{i}", b, PROMO_PARAMS)
+            raise AssertionError(f"promoted-rows XLA vs spec mismatch {i}")
+    dec = runtime.decode_wave(enc.payloads, [len(b) for b in blocks],
+                              PROMO_PARAMS, PROMO_CAPS)
+    if dec.payloads != blocks:
+        save_repro("promo_dec", blocks[0], PROMO_PARAMS)
+        raise AssertionError("promoted-rows XLA decode mismatch")
     return sum(map(len, blocks))
-
-
-def jax_words(w):
-    import jax.numpy as jnp
-
-    return jnp.asarray(w)
-
-
-jax_lens = jax_words
-
-
-# tier D: the huge-row tier under lowered promotion triggers (mirrors
-# tests/test_vm.py::test_vm_huge_fuzz_vs_spec, fresh random data each run;
-# fixed config + data length so the interpret trace is built once)
-HUGE_PARAMS = X3Params(max_match_count=15, window=32)
-HUGE_CAPS = CodecCaps(dict_cap=512, pair_cap=4096, ctx_items_cap=1024,
-                      ctx0_items_cap=1024, ctx_small_cap=16,
-                      block_bytes=8192)
-
-
-def tier_d(rng):
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from x3tpu.vm import driver as vmdrv
-    from x3tpu.vm.config import R_HUGE1_N, vm_caps
-
-    vc = dataclasses.replace(vm_caps(HUGE_PARAMS, HUGE_CAPS),
-                             big_trig0=72, big_trig1=48)
-    data = rng.integers(1, 65, 6000, np.uint8).tobytes()
-    text, tlen = codec.pack_blocks([data], HUGE_PARAMS, HUGE_CAPS)
-    text_flat = vmdrv._prep_text(
-        jnp.asarray(text, np.uint8), vc, 1, text.shape[1]
-    )
-    tlen_p = jnp.pad(jnp.asarray(tlen, np.int32), (0, 7))
-    state = vmdrv._init_state(text_flat, tlen_p, vc, 1)
-    step = vmdrv._get_step(vc, HUGE_PARAMS, 4096, 1, True)
-    while bool(vmdrv._any_active(state[13])):
-        state = step(text_flat, *state)
-    regs = np.asarray(state[13])
-    assert regs[0, R_HUGE1_N] > 0, "no huge promotion on random data"
-    words, byte_lens, _, _, of = vmdrv._finalize(state, vc)
-    for f in of._fields:
-        assert not np.asarray(getattr(of, f))[0], f"huge overflow {f}"
-    words, byte_lens = np.asarray(words), np.asarray(byte_lens)
-    got = words[0].astype("<u4").tobytes()[: byte_lens[0]]
-    if got != spec.encode(data, HUGE_PARAMS):
-        save_repro("huge_enc", data, HUGE_PARAMS)
-        raise AssertionError("huge-tier VM vs spec mismatch")
-    out, opos, _, _, dof = vmdrv.decode_blocks_vm_chunked(
-        jax_words(words[:1]), jax_lens(byte_lens[:1]), HUGE_PARAMS,
-        HUGE_CAPS, vc=vc, interpret=True, chunk_steps=4096,
-    )
-    for f in dof._fields:
-        assert not np.asarray(getattr(dof, f))[0], f"huge dec overflow {f}"
-    if np.asarray(out)[0, : np.asarray(opos)[0]].tobytes() != data:
-        save_repro("huge_dec", data, HUGE_PARAMS)
-        raise AssertionError("huge-tier VM decode mismatch")
-    return len(data)
 
 
 def main():
     rng = np.random.default_rng(SEED)
     trials = fuzzed = 0
-    nb = nc = nd = 0
+    nb = nc = 0
     while time.time() - T0 < BUDGET:
         fuzzed += tier_a(rng)
         trials += 1
@@ -241,18 +176,15 @@ def main():
         if trials % 200 == 0:
             fuzzed += tier_c(rng)
             nc += 1
-        if trials % 400 == 0:
-            fuzzed += tier_d(rng)
-            nd += 1
         if trials % 100 == 0:
-            log(f"{trials} trials ({nb} XLA, {nc} VM, {nd} huge batches), "
+            log(f"{trials} trials ({nb} XLA, {nc} promoted-row batches), "
                 f"{fuzzed/1e6:.1f} MB fuzzed, all exact")
         if trials % 500 == 0:
             # XLA:CPU JIT executables accumulate in a bounded LLVM section
             # arena; a multi-hour soak exhausts it (~1600 trials observed
             # twice) — drop the compile caches and re-trace
             jax.clear_caches()
-    log(f"DONE: {trials} trials ({nb} XLA, {nc} VM, {nd} huge), "
+    log(f"DONE: {trials} trials ({nb} XLA, {nc} promoted-row), "
         f"{fuzzed/1e6:.1f} MB, 0 mismatches (seed {SEED})")
     return 0
 

@@ -10,16 +10,17 @@ same bytes through the native host codec — bit-identical to the
 reference stream for the single-block case (tests/test_host.py) — and
 verifies every stream decodes.
 
-CPU-only (no TPU contention).  Blocks encode in parallel worker
-processes.  Usage: python experiments/ratio_at_scale.py [total_mib]
+Runs on the host CPU only (no accelerator).  Blocks encode in parallel
+worker processes.  Usage: python experiments/ratio_at_scale.py [total_mib]
 [block_mib] [seed_k]
 """
 
+import pathlib
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 

@@ -4,7 +4,7 @@
 // contract (SURVEY.md §0; reference semantics cited per member below).  This
 // is the framework's host-side runtime path: a fast CPU fallback for inputs
 // too small to be worth a device launch, and a bit-exact cross-check oracle
-// for the TPU codec at corpus scale (the NumPy spec is exact but slow).
+// for the device codec at corpus scale (the NumPy spec is exact but slow).
 //
 // Design intentionally differs from the reference C implementation: the
 // dictionary keeps entries in insertion order with a recency *permutation*
@@ -186,8 +186,8 @@ class Decoder {
     // guards: on a VALID stream total <= range and step >= 1 always
     // (ac.c invariants), so the clamps never fire; on a CORRUPT stream
     // they turn a SIGFPE div-by-zero into a normal bad-symbol path that
-    // the caller's bounds checks catch (round 5: a corrupt VM stream
-    // crashed the bench round-trip with rc=136 instead of reporting)
+    // the caller's bounds checks catch (a corrupt stream once crashed
+    // the bench round-trip with rc=136 instead of reporting)
     uint64_t tot = m.total() ? m.total() : 1;
     uint64_t step = (high_ - low_ + 1) / tot;
     if (step == 0) step = 1;
@@ -465,37 +465,33 @@ class Codec {
     return tags;
   }
 
-  // state-growth measurement for static-capacity tuning
-  void measure(int64_t* out) const {
+  // state-growth measurement for static-capacity tuning.  Non-hub rows
+  // longer than small_cap outgrow the device codec's small pool and are
+  // promoted to a big row (models/context.py); the big-row pool is a
+  // per-lane resource that must be sized too (CodecCaps.ctx_promo_rows).
+  void measure(size_t small_cap, int64_t* out) const {
     out[0] = int64_t(dict_.size());
     out[1] = int64_t(pairs_.size());
     size_t hub0 = ctx0_.empty() ? 0 : ctx0_[0].size();
-    size_t max0 = 0, big0 = 0, huge0 = 0;
+    size_t max0 = 0, promo0 = 0;
     for (size_t i = 1; i < ctx0_.size(); ++i) {
       size_t n = ctx0_[i].size();
       if (n > max0) max0 = n;
-      if (n > 63) ++big0;    // VM inline ctx0 capacity (vm/config.py IN0)
-      if (n > 896) ++huge0;  // big-span capacity (BIG0)
+      if (n > small_cap) ++promo0;
     }
     size_t hub1 = ctx1_.empty() ? 0 : ctx1_[0].size();
-    size_t max1 = 0, big1 = 0, huge1 = 0;
+    size_t max1 = 0, promo1 = 0;
     for (size_t i = 1; i < ctx1_.size(); ++i) {
       size_t n = ctx1_[i].size();
       if (n > max1) max1 = n;
-      if (n > 42) ++big1;    // IN1
-      if (n > 640) ++huge1;  // BIG1
+      if (n > small_cap) ++promo1;
     }
     out[2] = int64_t(hub0);
     out[3] = int64_t(max0);
     out[4] = int64_t(hub1);
     out[5] = int64_t(max1);
-    // promotion-pool usage (round 5: the 8 MiB hardware probe hit a
-    // ctx1 overflow that item caps alone could not explain — the span
-    // POOLS are per-lane resources that must be sized too)
-    out[6] = int64_t(big0);
-    out[7] = int64_t(huge0);
-    out[8] = int64_t(big1);
-    out[9] = int64_t(huge1);
+    out[6] = int64_t(promo0);
+    out[7] = int64_t(promo1);
   }
 
  private:
@@ -881,7 +877,7 @@ void x3h_free(uint8_t* ptr) { std::free(ptr); }
 // ctx0_max_nonhub, ctx1_hub, ctx1_max_nonhub}.
 void x3h_measure(const uint8_t* data, size_t size, int max_match_count,
                  long window, long factor1, long factor2, int nl_remap,
-                 int64_t* out) {
+                 long small_cap, int64_t* out) {
   x3host::Params p;
   p.max_match_count = max_match_count;
   p.window = window;
@@ -890,7 +886,7 @@ void x3h_measure(const uint8_t* data, size_t size, int max_match_count,
   p.nl_remap = nl_remap;
   x3host::Codec codec(p);
   codec.encode(data, size);
-  codec.measure(out);
+  codec.measure(size_t(small_cap), out);
 }
 
 // Train a seed dictionary: encode a sample and dump the first k dictionary

@@ -14,7 +14,6 @@ import sys
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 

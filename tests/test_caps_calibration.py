@@ -1,13 +1,14 @@
-"""Second-corpus calibration of caps_for_block (round-3 verdict #7).
+"""Calibration of caps_for_block against measured state growth.
 
-The MB-block capacity heuristics (parallel/runtime.py caps_for_block)
-were originally justified by ONE instrumented corpus (site-packages
-shared objects, /tmp/ref4mb_hub.log — a file that no longer exists
-outside the notes).  This test measures real state growth on a genuinely
-different diverse binary corpus (/usr/bin executables) with the native
-host codec (host.measure_state == an instrumented reference encode) and
-asserts the heuristic capacities cover it with the safety margin the
-overflow auto-retry assumes is rarely needed.
+The capacity heuristics (parallel/runtime.py caps_for_block) size the
+device codec's fixed-shape state.  These tests measure real state growth
+with the native host codec (host.measure_state == an instrumented
+reference encode) on two corpus classes — diverse binary (/usr/bin
+executables) and the bench text corpus — and assert the heuristic
+capacities cover every structure the device codec allocates: dictionary,
+pair map, hub rows, per-context items, and the per-family big-row pools
+that rows past the 16-item small pool are promoted into.  Auto-retry
+covers tails, but the common case must not rely on it.
 """
 
 import pathlib
@@ -29,56 +30,50 @@ def _usr_bin_corpus(n: int) -> bytes:
     return blob[:n]
 
 
+def _assert_covered(m, caps, margin=0.8):
+    # the codec's hub rows are sized dict_cap (codec._init_shared)
+    assert m["dict"] <= caps.dict_cap, m
+    assert m["ctx0_hub"] <= caps.dict_cap, m
+    assert m["ctx1_hub"] <= caps.dict_cap, m
+    # headroom: the heuristics should not be NEAR the cliff either
+    assert m["pairs"] <= margin * caps.pair_cap, m
+    assert m["ctx1_max"] <= margin * caps.ctx_items_cap, m
+    assert m["ctx0_max"] <= caps.ctx0_items_cap, m
+    # promotion POOLS are per-lane resources: a pool-exhausted promotion
+    # raises the family overflow even when every row fits its width
+    assert m["ctx1_promoted"] <= margin * caps.ctx_promo_rows, m
+    assert m["ctx0_promoted"] <= margin * caps.ctx0_promo_rows, m
+
+
 @pytest.mark.parametrize("mib", [1, 2, 4])
 def test_caps_for_block_cover_usr_bin_corpus(mib):
     block = mib << 20
     data = _usr_bin_corpus(block)
-    m = host.measure_state(data, X3Params())
-    caps = caps_for_block(block)
+    m = host.measure_state(data, X3Params(),
+                           small_cap=caps_for_block(block).ctx_small_cap)
+    _assert_covered(m, caps_for_block(block))
 
-    assert m["dict"] <= caps.dict_cap, m
-    assert m["pairs"] <= caps.pair_cap, m
-    assert m["ctx1_max"] <= caps.ctx_items_cap, m
-    assert m["ctx0_max"] <= caps.ctx0_items_cap, m
-    # VM hub planes are sized min(dict_cap, 8192) (vm/config.py vm_caps)
-    assert m["ctx0_hub"] <= min(caps.dict_cap, 8192), m
-    assert m["ctx1_hub"] <= min(caps.dict_cap, 8192), m
-    # headroom: the heuristics should not be NEAR the cliff either —
-    # auto-retry covers tails, but the common case must not rely on it
-    assert m["pairs"] <= 0.8 * caps.pair_cap, m
-    assert m["ctx1_max"] <= 0.8 * caps.ctx_items_cap, m
+
+@pytest.mark.parametrize("kib", [64, 256])
+def test_caps_for_block_cover_small_text_blocks(kib):
+    """Text blocks at the smoke test's 64 KiB and at 256 KiB."""
+    _check_text(kib << 10)
 
 
 @pytest.mark.parametrize("mib", [8, 16])
 def test_caps_for_block_cover_large_text_blocks(mib):
-    """The 8-16 MiB regime (round-5: ratio-at-scale lever) is text-class
-    only — diverse binary at these sizes exceeds the VM dictionary
-    ceiling (measured 38K entries at 8 MiB) and lands on the XLA retry
-    path by design.  Assert the heuristics cover measured TEXT growth
-    (host.measure_state 2026-08-20: 16 MiB text = dict 11914, pairs
-    517K, ctx1 max 2821, ctx0 max 2506) and that vm_caps hosts the
-    config at 8 lanes."""
+    """The 8-16 MiB regime (measured 16 MiB text: dict ~11.8K, pairs
+    ~513K, ctx1 max ~2.8K, ctx0 promoted ~10.6K rows).  Diverse binary at
+    these sizes needs a larger dictionary (38K entries at 8 MiB) and is
+    served by the overflow auto-retry by design."""
+    _check_text(mib << 20)
+
+
+def _check_text(block):
     from bench import build_corpus
-    from x3tpu.vm.config import set_active_lanes, vm_caps
 
-    block = mib << 20
     data = build_corpus(block)
-    m = host.measure_state(data, X3Params())
     caps = caps_for_block(block)
-
-    assert m["dict"] <= caps.dict_cap, m
-    assert m["pairs"] <= 0.8 * caps.pair_cap, m
-    assert m["ctx1_max"] <= 0.8 * caps.ctx_items_cap, m
+    m = host.measure_state(data, X3Params(), small_cap=caps.ctx_small_cap)
+    _assert_covered(m, caps)
     assert m["ctx0_max"] <= 0.8 * caps.ctx0_items_cap, m
-
-    set_active_lanes(8)
-    vc = vm_caps(X3Params(), caps)
-    assert vc.block_bytes == block
-    assert vc.resident_bytes <= 14 << 20
-    # promotion POOLS are per-lane resources: a pool-exhausted promotion
-    # raises the family overflow even when every row fits its tier (the
-    # first 8 MiB hardware probe failed exactly there, round 5)
-    assert m["ctx1_big"] <= 0.8 * vc.m1, m
-    assert m["ctx0_big"] <= 0.8 * vc.m0, m
-    assert m["ctx1_huge"] <= 0.8 * vc.h2_1, m
-    assert m["ctx0_huge"] <= 0.8 * vc.h2_0, m

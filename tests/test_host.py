@@ -6,7 +6,7 @@ import pytest
 from x3tpu import host, spec
 from x3tpu.config import X3Params
 
-from conftest import GOLDEN, PARAMSETS, golden_cases
+from conftest import C_TEXT, GOLDEN, PARAMSETS, golden_cases
 
 try:
     host.encode(b"probe")
@@ -35,7 +35,7 @@ def test_host_decode_reference_stream(name, pname):
 def test_host_large_roundtrip():
     """Bigger-than-golden input: host codec vs spec on 60 KB of mixed data."""
     rng = np.random.default_rng(42)
-    text = open("/root/reference/x3.c", "rb").read()
+    text = C_TEXT.read_bytes()[:20000]
     data = text + rng.integers(0, 256, 8000, dtype=np.uint8).tobytes() + text
     params = X3Params(max_match_count=8, window=2048)
     stream = host.encode(data, params)
@@ -79,7 +79,7 @@ def test_host_seeded_matches_jax_and_roundtrips():
     from x3tpu.config import CodecCaps
 
     params = X3Params(max_match_count=8, window=512)
-    text = open("/root/reference/x3.c", "rb").read()[:20000]
+    text = C_TEXT.read_bytes()[:20000]
     strs, lens = host.train_seeds(text[:4000], params, 64)
     blk = text[4000:12000]
 

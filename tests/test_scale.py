@@ -16,11 +16,9 @@ pytestmark = pytest.mark.skipif(
 
 
 def _corpus(total: int) -> bytes:
-    import pathlib
+    from conftest import C_TEXT
 
-    parts = []
-    for f in sorted(pathlib.Path("/root/reference").glob("*.[ch]")):
-        parts.append(f.read_bytes())
+    parts = [C_TEXT.read_bytes()]
     rng = np.random.default_rng(5)
     parts.append(rng.integers(0, 256, 50_000, np.uint8).tobytes())
     parts.append(bytes(rng.choice(list(b"abcdef \n"), 100_000)))

@@ -1,5 +1,5 @@
-"""Two-way interop with the reference binary, built from /root/reference at
-test time, across a randomized parameter sweep (beyond the golden fixtures).
+"""Two-way interop with the reference binary, built from $X3_REFERENCE_SRC
+at test time, across a randomized parameter sweep (beyond the golden fixtures).
 
 Uses the native host codec as "our" side (bit-exact vs spec and the JAX
 codec by the other suites) so the sweep runs at full speed.

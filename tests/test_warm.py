@@ -1,7 +1,7 @@
 """Warm-start tape + replay unit tests (container v2; x3tpu/warm.py).
 
-Integration (spec/host/XLA/VM warm encode equality) lives with the
-respective suites; this file pins the format and the replay rule.
+This file pins the format and the replay rule, and the lockstep of the
+native host codec and the XLA codec under it.
 """
 
 import pytest
@@ -59,17 +59,15 @@ def test_replay_caps_and_validation():
 
 
 def test_warm_lockstep_host_xla_vm():
-    """The warm replay must produce BIT-IDENTICAL streams across the
-    native host codec, the XLA codec, and the codec-VM kernel
-    (interpret), and warm streams must decode on each — the same
-    lockstep contract as dictionary seeds."""
+    """The warm replay must produce BIT-IDENTICAL streams on the native
+    host codec and the XLA codec, and warm streams must decode on each —
+    the same lockstep contract as dictionary seeds."""
     import numpy as np
 
     import jax.numpy as jnp
 
     from x3tpu import codec, host
     from x3tpu.config import CodecCaps, X3Params
-    from x3tpu.vm import decode_blocks_vm_chunked, encode_blocks_vm_chunked
 
     params = X3Params(max_match_count=4, window=512)
     sample = b"alpha beta gamma " * 120 + b"delta epsilon " * 80
@@ -97,20 +95,13 @@ def test_warm_lockstep_host_xla_vm():
     xs = np.asarray(ww)[0].astype("<u4").tobytes()[: int(np.asarray(bl)[0])]
     assert xs == hs
 
-    wv = warm.for_vm(wa)
-    wwv, blv, *_ = encode_blocks_vm_chunked(
-        text, tlen, params, caps, seeds=sj, interpret=True, warm=wv)
-    vs = np.asarray(wwv)[0].astype("<u4").tobytes()[
-        : int(np.asarray(blv)[0])]
-    assert vs == hs
-
     iw = (len(hs) + 3) // 4 + 2
     wsrc = np.zeros((1, iw), np.uint32)
     a = np.frombuffer(hs + b"\x00" * ((-len(hs)) % 4), "<u4")
     wsrc[0, : len(a)] = a
     lsrc = np.asarray([len(hs)], np.int32)
-    out, opos, *_ = decode_blocks_vm_chunked(
-        wsrc, lsrc, params, caps, interpret=True, seeds=sj, warm=wv)
+    out, opos, *_ = codec.decode_blocks_chunked(
+        wsrc, lsrc, params, caps, seeds=sj, warm=wx)
     assert np.asarray(out)[0][: int(np.asarray(opos)[0])].tobytes() == data
 
 

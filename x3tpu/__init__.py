@@ -1,8 +1,8 @@
-"""x3tpu — a TPU-native lossless data-compression framework.
+"""x3tpu — block-parallel lossless data compression on JAX devices.
 
 Re-implements, from scratch, the capabilities of the experimental ``x3``
 dictionary compressor (reference: xbarin02/x3-compressor, surveyed in
-SURVEY.md) as an idiomatic JAX/XLA/Pallas system:
+SURVEY.md) as an idiomatic JAX/XLA system:
 
 * :mod:`x3tpu.spec` — executable format specification (NumPy oracle codec).
 * :mod:`x3tpu.ops` — lane-parallel bit I/O, arithmetic coder and match kernels.

@@ -1,5 +1,5 @@
 """Command-line interface, flag-compatible with the reference binary
-(x3.c:460-548) plus TPU-runtime options.
+(x3.c:460-548) plus device-runtime options.
 
 Reference behaviors kept: -z/-d mode select, -f overwrite guard
 (file.c:47-55), -k (no-op: inputs are never deleted), .x3 suffix add/strip
@@ -20,13 +20,13 @@ from typing import Optional
 
 from x3tpu.config import X3Params
 from x3tpu.parallel import runtime
-from x3tpu.utils import timing
+from x3tpu.utils import device, timing
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="x3tpu",
-        description="TPU-native x3 compressor (reference-format compatible)",
+        description="x3 compressor on JAX devices (reference-format compatible)",
     )
     p.add_argument("-z", dest="mode", action="store_const", const="z",
                    help="force compression")
@@ -72,13 +72,13 @@ def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     mode = args.mode or "z"
 
-    if args.cpu:
-        # env vars alone do not override the pinned platform once jax is
-        # imported (it already is, transitively): jax.config is the only
-        # effective mechanism
-        import jax
+    import jax
 
+    if args.cpu:
+        # jax is already imported (transitively), so JAX_PLATFORMS would
+        # be read too late; the config update still precedes the backend
         jax.config.update("jax_platforms", "cpu")
+    device.enable_compile_cache()
 
     params = X3Params(
         max_match_count=args.max_match_count,

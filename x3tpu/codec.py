@@ -108,7 +108,7 @@ def _init_shared(lanes: int, caps: CodecCaps, seeds=None, warm=None):
     ctx0 = cm.ctx_init(
         lanes, caps.dict_cap, caps.pair_cap, caps.ctx0_items_cap,
         with_pair=False, small_cap=caps.ctx_small_cap,
-        promo_rows=caps.ctx_promo_rows,
+        promo_rows=caps.ctx0_promo_rows,
     )
     ctx1 = cm.ctx_init(
         lanes, caps.dict_cap, caps.dict_cap, caps.ctx_items_cap,
@@ -234,8 +234,8 @@ def _literal_encode_loop(carry, miss, mlen, frag32=None):
         else gather_window(carry.text, carry.p, W)
     ).astype(I32)                                                # [L, 32]
     cum = jnp.cumsum(carry.ch, axis=1) - carry.ch                # excl prefix
-    # one-hot select instead of take_along_axis (elementwise gathers run at
-    # ~19ns/element on TPU; broadcast compare+reduce is effectively free)
+    # one-hot select instead of take_along_axis: a broadcast compare +
+    # reduce over the 256-symbol table, no elementwise gather
     onehot = frag[:, :, None] == jax.lax.broadcasted_iota(I32, (1, 1, 256), 2)
     base_low = jnp.sum(jnp.where(onehot, cum[:, None, :], 0), axis=2)
     base_span = jnp.sum(jnp.where(onehot, carry.ch[:, None, :], 0), axis=2)
@@ -296,8 +296,8 @@ def _enc_body(carry: EncCarry, params: X3Params) -> EncCarry:
     active = carry.p < carry.tlen
 
     # one per-lane window fetch per event feeds everything: probe target,
-    # window scan, veto targets and literal bytes.  Unrolled contiguous
-    # dynamic slices: a plain XLA gather here costs ~640us/event at L=32.
+    # window scan, veto targets and literal bytes, fetched as unrolled
+    # contiguous dynamic slices rather than an elementwise gather.
     W = max(params.window, MAX_MATCH_LEN)
     Wbuf = ((max(W, 2 * MAX_MATCH_LEN) + MAX_MATCH_LEN + 127) // 128) * 128
     win = gather_window(carry.text, carry.p, Wbuf)
@@ -431,8 +431,8 @@ def enc_active(carry: EncCarry) -> jax.Array:
 
 
 def enc_chunk(carry: EncCarry, params: X3Params, nsteps: int) -> EncCarry:
-    """Run up to ``nsteps`` events (bounds single-program device time; the
-    host loops chunks with donated carries)."""
+    """Run up to ``nsteps`` events (one bounded device program; the host
+    loops chunks with donated carries)."""
 
     def cond(c):
         i, carry = c
@@ -496,8 +496,8 @@ def encode_blocks_chunked(
     chunk_steps: int = 8192, warm=None,
 ):
     """Host-driven chunked encode: repeated bounded device programs with a
-    donated carry (keeps each execution well under RPC/watchdog limits and
-    provides natural progress/interruption points)."""
+    donated carry.  Each chunk ends at a progress point, where the host
+    reads one flag to learn whether any lane is still encoding."""
     carry = _enc_init_jit(text, tlen, params, caps, seeds, warm)
     while bool(_enc_active_jit(carry)):
         carry = _enc_chunk_jit(carry, params, chunk_steps)
@@ -820,8 +820,8 @@ def pack_blocks(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Pad blocks into the [L, TB] text buffer (+window zero padding,
     x3.c:579/590)."""
-    # pad covers the event-loop's DMA window: Wbuf rounded to the rank-1
-    # memref tile (1024) plus the trailing probe bytes
+    # pad covers the event loop's window fetch (Wbuf bytes past any
+    # position, rounded up to 1 KiB) plus the trailing probe bytes
     wbuf = ((max(params.window, 2 * MAX_MATCH_LEN) + MAX_MATCH_LEN + 127)
             // 128) * 128
     pad = ((wbuf + 1023) // 1024) * 1024 + 64

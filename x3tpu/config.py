@@ -2,7 +2,7 @@
 
 The reference exposes its knobs as getopt one-letter flags stored in
 file-scope statics (x3.c:484-518 -> backend.c:8-54).  Here they are a frozen
-dataclass, plus TPU-side capacity/mesh configuration that has no reference
+dataclass, plus device-side capacity configuration that has no reference
 counterpart (the reference grows all state dynamically on the heap; XLA
 requires static shapes, so capacities are explicit and overflow is detected
 and reported — see SURVEY.md §7 "hard parts" #2).
@@ -11,7 +11,6 @@ and reported — see SURVEY.md §7 "hard parts" #2).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
 
 # Compile-time constant of the format: maximum match/fragment length is 32
 # bytes and the match-size model has 32 symbols (backend.h:6-10, x3.c:246).
@@ -61,7 +60,7 @@ class X3Params:
 
 @dataclasses.dataclass(frozen=True)
 class CodecCaps:
-    """Static capacities for the fixed-shape TPU codec state.
+    """Static capacities for the fixed-shape device codec state.
 
     The reference doubles each structure on demand (dict.c:26-36,
     tag_pair.c:62-65, context.c:7-18).  Under XLA everything is
@@ -75,45 +74,24 @@ class CodecCaps:
     ctx_items_cap: int = 128       # promoted-row capacity, order-1 contexts
     ctx0_items_cap: int = 128      # promoted-row capacity, order-2 contexts
     ctx_small_cap: int = 16        # small-pool width (covers the p99)
-    ctx_promo_rows: int = 0        # big rows per family (0 = derive)
+    ctx_promo_rows: int = 0        # big rows, order-1 family (0 = derive)
+    ctx0_promo_rows: int = 0       # big rows, order-2 family (0 = derive)
     block_bytes: int = 1 << 20     # max uncompressed bytes per lane/block
     out_words_factor: int = 2      # compressed buffer headroom (x3.c:580: 2x)
-    engine: str = "auto"           # "auto" | "xla" | "vm" | "vm_interpret"
 
     @property
     def out_words(self) -> int:
         return (self.block_bytes * self.out_words_factor + 3) // 4
 
     def scaled(self, factor: int) -> "CodecCaps":
-        """Return capacities grown by ``factor`` (for overflow re-runs)."""
+        """Return capacities grown by ``factor`` (for overflow re-runs).
+        Derived big-row pools (0) grow with pair_cap/dict_cap already."""
         return dataclasses.replace(
             self,
             dict_cap=self.dict_cap * factor,
             pair_cap=self.pair_cap * factor,
             ctx_items_cap=self.ctx_items_cap * factor,
             ctx0_items_cap=self.ctx0_items_cap * factor,
+            ctx_promo_rows=self.ctx_promo_rows * factor,
+            ctx0_promo_rows=self.ctx0_promo_rows * factor,
         )
-
-    def resolved(self) -> "CodecCaps":
-        """Resolve engine='auto' by backend: the codec-VM Pallas kernel on
-        TPU, the XLA while-loop path elsewhere; call outside jit."""
-        if self.engine != "auto":
-            return self
-        import jax
-
-        backend = jax.default_backend()
-        e = "vm" if backend not in ("cpu",) else "xla"
-        return dataclasses.replace(self, engine=e)
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """Device-mesh configuration for the block-data-parallel runtime.
-
-    No reference counterpart (the reference is single-threaded; SURVEY.md
-    §2 "Parallelism & communication components").
-    """
-
-    axis_name: str = "blocks"
-    num_devices: Optional[int] = None   # None -> all local devices
-    lanes_per_device: int = 8           # independent blocks per chip

@@ -67,7 +67,7 @@ def _load() -> ctypes.CDLL:
         lib.x3h_measure.restype = None
         lib.x3h_measure.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_long,
-            ctypes.c_long, ctypes.c_long, ctypes.c_int,
+            ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_long,
             ctypes.POINTER(ctypes.c_int64),
         ]
         lib.x3h_encode_seeded.restype = ctypes.c_int
@@ -297,20 +297,21 @@ def train_tape(data: bytes, params: X3Params = X3Params(), k: int = 256,
     return strs[:n], lens[:n], tape
 
 
-def measure_state(data: bytes, params: X3Params = X3Params()):
+def measure_state(data: bytes, params: X3Params = X3Params(),
+                  small_cap: int = 16):
     """Encode on the host and report state growth for capacity tuning:
     dict entries, pairs, ctx0 hub items, max non-hub ctx0 items, ctx1 hub
-    items, max non-hub ctx1 items, plus the VM promotion-pool usage
-    (rows past the inline/big capacities per family — the per-lane big
-    and huge span pools must cover these counts, vm/config.py m0/m1 and
-    h2_0/h2_1; round-5 lesson from the 8 MiB ctx1 overflow)."""
+    items, max non-hub ctx1 items, plus per family the non-hub rows longer
+    than ``small_cap`` (CodecCaps.ctx_small_cap) — the rows the device
+    codec promotes to big rows, which CodecCaps.ctx_promo_rows must
+    cover."""
     lib = _load()
-    out = (ctypes.c_int64 * 10)()
+    out = (ctypes.c_int64 * 8)()
     lib.x3h_measure(
         data, len(data), params.max_match_count, params.window,
         params.magic_factor1, params.magic_factor2,
-        1 if params.nl_remap else 0, out,
+        1 if params.nl_remap else 0, small_cap, out,
     )
     keys = ("dict", "pairs", "ctx0_hub", "ctx0_max", "ctx1_hub",
-            "ctx1_max", "ctx0_big", "ctx0_huge", "ctx1_big", "ctx1_huge")
+            "ctx1_max", "ctx0_promoted", "ctx1_promoted")
     return dict(zip(keys, [int(v) for v in out]))

@@ -58,5 +58,41 @@ def model_inc(freqs: jax.Array, sym: jax.Array, active: jax.Array) -> jax.Array:
 
 def f32_prob(span: jax.Array, total: jax.Array) -> jax.Array:
     """f32 probability estimate matching C float semantics
-    ((float)freq / total, ac.c:108-113)."""
-    return span.astype(jnp.float32) / total.astype(jnp.float32)
+    ((float)freq / total, ac.c:108-113): the correctly rounded f32
+    quotient of the two operands rounded to f32.
+
+    The encoder picks its coding mode by comparing products of these
+    quotients (codec._hit_mode_stats), so one last-bit difference changes
+    the stream.  Hardware f32 division is not correctly rounded on every
+    backend (XLA's GPU code uses a 2-ulp divide), so the quotient is built
+    from exact u32 integer division instead: a 25/26-bit quotient of the
+    24-bit mantissas, then round-to-nearest-even.  Operands are
+    non-negative; ``total`` >= 1 at every call site (a zero total falls
+    back to the hardware divide)."""
+    a = span.astype(jnp.float32)
+    b = total.astype(jnp.float32)
+    ab = jax.lax.bitcast_convert_type(a, jnp.uint32)
+    bb = jax.lax.bitcast_convert_type(b, jnp.uint32)
+    ma = (ab & 0x7FFFFF) | 0x800000                  # 24-bit mantissas
+    mb = (bb & 0x7FFFFF) | 0x800000
+    # floor(ma * 2^25 / mb) by long division in 7/7/7/4-bit digits: every
+    # partial numerator stays below 2^31
+    q = jnp.zeros_like(ma)
+    r = ma
+    for shift in (7, 7, 7, 4):
+        n = r << shift
+        q = (q << shift) | (n // mb)
+        r = n % mb
+    big = q >= (1 << 25)                             # ma >= mb: 26 bits
+    mant = jnp.where(big, q >> 2, q >> 1)
+    guard = jnp.where(big, q >> 1, q) & 1
+    sticky = (r != 0) | (big & ((q & 1) != 0))
+    mant = mant + (guard & (sticky | ((mant & 1) != 0)).astype(jnp.uint32))
+    carry = mant >> 24                               # rounded up to 2^24
+    mant = jnp.where(carry != 0, mant >> 1, mant)
+    exp = ((ab >> 23).astype(I32) - (bb >> 23).astype(I32) + 127
+           - jnp.where(big, 0, 1) + carry.astype(I32))
+    bits = (exp.astype(jnp.uint32) << 23) | (mant & 0x7FFFFF)
+    q32 = jax.lax.bitcast_convert_type(bits, jnp.float32)
+    q32 = jnp.where(ab == 0, jnp.float32(0), q32)
+    return jnp.where(bb == 0, a / b, q32)

@@ -34,9 +34,8 @@ def gather_window(text: jax.Array, p: jax.Array, width: int) -> jax.Array:
     never reads out of bounds).
 
     Implemented as L unrolled contiguous dynamic slices: XLA lowers
-    take_along_axis to an elementwise gather at ~19 ns/element (~800 us for
-    a [32, 1056] window -- measured, the single hottest op in the encoder),
-    while contiguous dynamic slices run at full bandwidth."""
+    take_along_axis to an elementwise gather, one index per byte, while a
+    contiguous dynamic slice copies a whole row."""
     L = text.shape[0]
     rows = [
         jax.lax.dynamic_slice(text, (l, p[l]), (1, width)) for l in range(L)
@@ -106,8 +105,7 @@ def best_match_sweep(
         # vetoed candidate is vetoed at every threshold, so the sweep is
         # exactly "argmax of (level, i) over non-vetoed candidates".
         # One batch of MML-1 probes replaces the while_loop's
-        # MML-1-probes-PER-ROUND fori (same restructure as the VM
-        # kernel's phase F); f2's exists-o<=i test is a cummax of
+        # MML-1-probes-PER-ROUND fori; f2's exists-o<=i test is a cummax of
         # vl[o]-o.
         vls = [jnp.zeros((lanes,), I32)]
         for o in range(1, MAX_MATCH_LEN):

@@ -1,19 +1,21 @@
 """Multi-host runtime (SURVEY.md §5 "distributed communication backend" —
 no reference counterpart; the reference is one process, one thread).
 
-Topology model: every host runs the same program; `jax.distributed`
-bootstraps the global device view; blocks are sharded over the *global*
-1-D `blocks` mesh (lanes ride ICI within a slice, DCN across hosts only
-for the final in-order payload gather and the replicated seed broadcast —
-both tiny next to the sharded text/outputs, which never leave their
-devices).
+Topology model: one process per host drives every card of that host (a
+host with four GPUs is one process, with no `jax.distributed`).  Across
+hosts, every host runs the same program; `jax.distributed` bootstraps the
+global device view; blocks are sharded over the *global* 1-D `blocks`
+mesh, and the network carries only the final in-order payload gather and
+the replicated seed broadcast — both tiny next to the sharded
+text/outputs, which never leave their devices.
 
 Fault/elasticity posture: compression state is per-block, so host failure
 only loses in-flight waves; the wave journal (runtime.WaveJournal) makes a
 restarted job resume after the last completed wave.
 
-This module is exercised single-process in CI (the virtual 8-device CPU
-mesh); true multi-host runs need a pod slice.
+This module is exercised in CI single-process (the virtual 8-device CPU
+mesh) and as a real 2-process CPU cluster on localhost
+(tests/multihost_worker.py).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ def init_multihost(
     process_id: Optional[int] = None,
 ) -> int:
     """Initialize jax.distributed (idempotent).  With no arguments, relies
-    on the cluster environment (TPU pod metadata / env vars); outside a
-    cluster this is a no-op.  Returns this process's id."""
+    on a cluster environment JAX can auto-detect (e.g. SLURM); outside one
+    this is a no-op.  Returns this process's id."""
     # idempotency probe that does NOT touch the backend (jax.process_count
     # would initialize XLA, after which distributed.initialize refuses)
     from jax._src import distributed as _jdist

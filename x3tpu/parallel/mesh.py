@@ -14,21 +14,19 @@ from typing import Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from x3tpu import codec
 from x3tpu.config import CodecCaps, X3Params
 
-try:  # jax >= 0.6 moved shard_map to the top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-
 AXIS = "blocks"
 
 
 def make_mesh(num_devices: Optional[int] = None, devices=None) -> Mesh:
-    """A 1-D mesh over the block-parallel axis."""
+    """A 1-D mesh over the block-parallel axis.  Blocks never talk to each
+    other, so the mesh follows the algorithm alone: on one host every card
+    reaches every other over NVLink at the same rate."""
     if devices is None:
         devices = jax.devices()
     if num_devices is not None:
@@ -138,8 +136,8 @@ def encode_sharded(text, tlen, params: X3Params, caps: CodecCaps, mesh: Mesh,
                    seeds=None, chunk_steps: int = 8192):
     """Chunked sharded encode: lanes sharded over the mesh, the host
     looping bounded chunk programs (each device execution covers at most
-    ``chunk_steps`` events — the >30 s single-execution device fault is the
-    reason the whole-loop program is never dispatched on hardware).  The
+    ``chunk_steps`` events; the chunk boundaries are the run's progress
+    points, where the host checks whether any lane is still active).  The
     lane count must be a multiple of the mesh size; seeds (if any) are
     broadcast replicated to every device."""
     sharding = NamedSharding(mesh, P(AXIS))

@@ -22,7 +22,7 @@ Format summary (headerless, self-describing):
 * After every event the dictionary is re-ranked by recency (dict.c:132-146).
   Because positions strictly increase and at most one entry's ``last_pos``
   changes per event, the re-sort is provably equivalent to a move-to-front
-  of the touched entry — the key fact the TPU codec exploits.
+  of the touched entry — the key fact the device codec exploits.
 """
 
 from __future__ import annotations

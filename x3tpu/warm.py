@@ -9,14 +9,14 @@ markers where the chain broke (an E_NEW event, or a dictionary event
 whose tag was not kept as a seed) — and BOTH sides derive the warm
 context state from (seeds, tape) with the replay below.  The rule is
 part of the versioned container format: every implementation (spec
-oracle, native host, XLA codec, VM driver) must apply it identically,
+oracle, native host, XLA codec) must apply it identically,
 exactly like the dictionary-seed lockstep rule.
 
 The replay mirrors the real post-event update (x3.c:195-222, spec.py
 CodecState.update_contexts) as if the tape's dictionary events had
 happened, under fixed capacity caps chosen so the warm rows fit every
-implementation's SMALLEST init tier (XLA small pool 16 items; VM
-inline rows; hubs):
+implementation's SMALLEST init tier (XLA small pool 16 items;
+hubs):
 
   * per-row item cap ROW_CAP = 16 (both families; hub rows HUB_CAP)
   * pair registrations stop at PAIR_WARM_CAP
@@ -153,8 +153,8 @@ def replay(tape: List[int], num_seeds: int) -> WarmState:
         add_or_inc(w.ctx0[cid], tag, is_hub=(cid == 0))
         # ctx1 item append and pair registration are 1:1 in the real
         # codec (x3.c:211-221: a tag is appended to ctx1[c1] exactly
-        # when the (c1, tag) pair registers) — and the VM/XLA layouts
-        # DEPEND on that: pair ids live inline in the item slots.  The
+        # when the (c1, tag) pair registers) — and the XLA layout
+        # DEPENDS on that: pair ids live inline in the item slots.  The
         # replay preserves the invariant under caps: a new item is
         # admitted only when its pair can register too; otherwise both
         # are skipped.
@@ -253,9 +253,10 @@ def check_fits(wa: WarmArrays, dict_cap: int, pair_cap: int,
         raise ValueError("warm ctx0 row beyond pair capacity")
 
 
-def to_xla_dense(wa: WarmArrays, small_cap: int) -> Dict[str, np.ndarray]:
-    """WarmArrays -> dense single-lane arrays for the XLA codec init
-    (models/context.py CtxFamily: hub planes + small-pool rows).  Row
+def for_xla(wa: WarmArrays, small_cap: int) -> Dict[str, np.ndarray]:
+    """WarmArrays -> dense single-lane arrays for the codec init
+    (codec._init_shared; models/context.py CtxFamily: hub planes +
+    small-pool rows).  Row
     arrays are [K, small_cap] padded with zeros; ``*_rows`` are the
     small-pool row indices to scatter into."""
 
@@ -287,77 +288,3 @@ def to_xla_dense(wa: WarmArrays, small_cap: int) -> Dict[str, np.ndarray]:
         "c1": rows(wa.ctx1_idx, wa.ctx1_items, with_pair=True),
         "pair_n": np.int32(wa.pair_n),
     }
-
-
-def to_vm_rows(wa: WarmArrays, tags_col0: int, freqs_col0: int,
-               tags_col1: int, freqs_col1: int, pairs_col1: int,
-               ) -> Dict[str, np.ndarray]:
-    """WarmArrays -> single-lane VM HBM inline rows ([K, 128] values +
-    row indices) for the codec-VM driver init (vm/rows.py inline
-    layout: [n | tags | freqs (| pairs)])."""
-
-    def pack_rows(idx, items, tc, fc, pc):
-        K = len(idx)
-        rows = np.zeros((K, 128), np.int32)
-        for k, it in enumerate(items):
-            m = len(it)
-            rows[k, 0] = m
-            rows[k, tc : tc + m] = it[:, 0]
-            rows[k, fc : fc + m] = it[:, 1]
-            if pc is not None:
-                rows[k, pc : pc + m] = it[:, 2]
-        return np.asarray(idx, np.int32), rows
-
-    i0, r0 = pack_rows(wa.ctx0_idx, wa.ctx0_items, tags_col0, freqs_col0,
-                       None)
-    i1, r1 = pack_rows(wa.ctx1_idx, wa.ctx1_items, tags_col1, freqs_col1,
-                       pairs_col1)
-    return {"c0_idx": i0, "c0_rows": r0, "c1_idx": i1, "c1_rows": r1}
-
-
-def _hub_dict(wa: WarmArrays):
-    return {
-        "h0t": wa.hub0_tags, "h0f": wa.hub0_freqs,
-        "h0n": np.int32(len(wa.hub0_tags)),
-        "h1t": wa.hub1_tags, "h1f": wa.hub1_freqs,
-        "h1p": wa.hub1_pairs, "h1n": np.int32(len(wa.hub1_tags)),
-        "pair_n": np.int32(wa.pair_n),
-    }
-
-
-def for_xla(wa: WarmArrays, small_cap: int):
-    """Warm dict for codec._init_shared (XLA layout)."""
-    d = to_xla_dense(wa, small_cap)
-    return d
-
-
-def for_vm(wa: WarmArrays):
-    """Warm dict for vm.driver._init_state (VM inline-row layout).
-
-    The VM stores every freq section as an INCLUSIVE cumulative row
-    with the tail-total invariant (vm/rows.py row_stats), so the raw
-    item freqs are converted here: cum within the items, total in every
-    column after them (inline rows to the section cap; hub planes get
-    scalar ``h0tot/h1tot`` for the driver's tail fill)."""
-    from x3tpu.vm import rows as rw
-    from x3tpu.vm.config import IN0, IN1
-
-    d = to_vm_rows(wa, rw.C0_TAGS, rw.C0_FREQS, rw.C1_TAGS, rw.C1_FREQS,
-                   rw.C1_PAIRS)
-
-    def cum_rows(idx, items, rows, fc, cap):
-        for k, it in enumerate(items):
-            m = len(it)
-            c = np.cumsum(it[:, 1]).astype(np.int32)
-            rows[k, fc : fc + m] = c
-            tot = c[-1] if m else 0
-            rows[k, fc + m : fc + cap] = tot
-
-    cum_rows(wa.ctx0_idx, wa.ctx0_items, d["c0_rows"], rw.C0_FREQS, IN0)
-    cum_rows(wa.ctx1_idx, wa.ctx1_items, d["c1_rows"], rw.C1_FREQS, IN1)
-    d.update(_hub_dict(wa))
-    d["h0f"] = np.cumsum(wa.hub0_freqs).astype(np.int32)
-    d["h1f"] = np.cumsum(wa.hub1_freqs).astype(np.int32)
-    d["h0tot"] = np.int32(d["h0f"][-1] if len(d["h0f"]) else 0)
-    d["h1tot"] = np.int32(d["h1f"][-1] if len(d["h1f"]) else 0)
-    return d
